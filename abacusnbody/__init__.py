@@ -1,5 +1,5 @@
 """Drop-in import-compatibility package for `abacusnbody` (the reference
-abacusutils namespace): every module re-exports the TPU-native
+abacusutils namespace): every module re-exports the JAX
 implementation from `abacusutils_tpu`, so existing user code and configs run
 unchanged."""
 

@@ -1,6 +1,6 @@
-"""abacusutils-tpu: a TPU-native framework for AbacusSummit N-body data products.
+"""abacusutils-tpu: a JAX framework for AbacusSummit N-body data products.
 
-Capability-parity rebuild of abacusorg/abacusutils with a JAX/XLA/Pallas
+Capability-parity rebuild of abacusorg/abacusutils with a JAX/XLA
 compute engine: halo-catalog loading, HOD mock galaxy population, power
 spectra, correlation functions, and Zel'dovich/linear control variates.
 """

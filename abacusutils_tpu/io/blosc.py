@@ -33,7 +33,6 @@ import struct
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
-import zstandard
 
 __all__ = ['decompress_chunk', 'compress_chunk', 'ChunkedBloscDecoder']
 
@@ -60,6 +59,8 @@ class _ZstdProxy:
     def decompress(self, *args, **kwargs):
         d = getattr(_tls, 'zd', None)
         if d is None:
+            import zstandard
+
             d = _tls.zd = zstandard.ZstdDecompressor()
         return d.decompress(*args, **kwargs)
 
@@ -200,6 +201,8 @@ def compress_chunk(
     flags = _DONT_SPLIT | (_FMT_ZSTD << 5)
     if shuffle:
         flags |= _DOSHUFFLE
+
+    import zstandard
 
     cctx = zstandard.ZstdCompressor(level=clevel)
     header = bytearray(16)

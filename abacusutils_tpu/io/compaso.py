@@ -14,7 +14,7 @@ numerical outputs — but a different engine:
 - tables are :class:`abacusutils_tpu.io.table.Table`.
 
 The loaded halo/particle arrays are flat, contiguous numpy — ready to be
-shipped to TPU HBM by the HOD/analysis layers.
+shipped to device memory by the HOD/analysis layers.
 """
 
 import re

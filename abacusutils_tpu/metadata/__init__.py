@@ -14,7 +14,6 @@ The metadata bundles are *data products* (not code); they are searched for in:
 import os
 from pathlib import Path
 
-import msgpack
 import numpy as np
 
 from ..io.asdf_file import open_asdf
@@ -35,6 +34,8 @@ _SEARCH_DIRS = [
 
 
 def _load_all():
+    import msgpack
+
     global metadata
     metadata = {}
     found_any = False

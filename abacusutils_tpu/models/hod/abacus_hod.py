@@ -11,10 +11,8 @@ import logging
 import time
 from pathlib import Path
 
-import h5py
 import numpy as np
 
-from ...io.asdf_file import open_asdf
 from ...io.table import Table
 from ...ops.tpcf import calc_multipole_fast, calc_wp_fast, calc_xirppi_fast
 from . import shapes_np
@@ -133,6 +131,10 @@ class AbacusHOD:
         """Load halo+particle subsamples into flat arrays (reference
         staging():253-704, incl. the global fenv re-ranking from env
         sidecars)."""
+        import h5py
+
+        from ...io.asdf_file import open_asdf
+
         output_dir = Path(self.output_dir)
         simname = Path(self.sim_name)
         sim_dir = Path(self.sim_dir)
@@ -586,9 +588,7 @@ class AbacusHOD:
         """Run fn over all tracer pairs. Each tracer's positions are staged
         to the device ONCE as three 1D SoA columns — the tpcf grid engine
         caches its cell stage per column-identity, so the auto + cross (and
-        wp + multipole) calls on one catalog share staging/upload. 1D
-        columns (not an (N, 3) array, which pads to (N, 128) in TPU HBM)
-        keep multi-million-galaxy tracers cheap to hold resident."""
+        wp + multipole) calls on one catalog share staging/upload."""
         import jax.numpy as jnp
 
         staged = {
@@ -762,9 +762,10 @@ class AbacusHOD:
         Pass a `jax.sharding.Mesh` as ``mesh`` to run the identical fused
         program sharded over its devices (parallel.mesh.
         hod_pk_fused_sharded: x-slab cell shards, int8 conformity
-        all_gather, ICI grid psum) — bin-for-bin the same spectra and
+        all_gather, grid psum) — bin-for-bin the same spectra and
         galaxy counts, scaled across chips. ``slab`` (sharded runs only;
-        default auto: nmesh >= 512) keeps the grid itself sharded —
+        default auto: when the replicated grids would not fit the devices'
+        memory, parallel.mesh.auto_slab) keeps the grid itself sharded —
         x-slab deposits with ppermute halo exchange, all-to-all transpose
         FFT, ky-slab binning — at ~1/n_devices grid memory per chip."""
         import jax.numpy as jnp

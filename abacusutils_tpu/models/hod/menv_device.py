@@ -31,8 +31,8 @@ Precision modes (the `precision` argument):
   (dx*dx+dy*dy)+dz*dz pairing; the periodic min-image dx - L*round(dx/L)
   equals the tree's min(|dx|, L-|dx|) branch up to exact negation). Only
   the summation ORDER differs, so Menv matches the host engine to f64
-  rounding (~1e-15 relative). Requires an f64-capable backend (CPU).
-- 'exact32' — f32-only (TPU) path in double-float32 (utils.twofloat):
+  rounding (~1e-15 relative).
+- 'exact32' — f32-only path in double-float32 (utils.twofloat):
   coordinates, masses, and squared radii ride as (hi, lo) f32 pairs
   (~2^-48 relative), pair distances use error-free twoSum differences and
   Dekker-split squares (~2^-46), the ball comparisons are lexicographic
@@ -42,13 +42,12 @@ Precision modes (the `precision` argument):
   flip would move Menv by one halo mass; zero observed on test boxes) and
   the sums carry ~2^-40 relative error, far below the ~5e-7 adjacent-halo
   Menv spacing that downstream fenv ranking resolves (calc_fenv_opt).
-  No device division/sqrt enters the comparisons (TPU approximates
-  those); the min-image round(d/L) uses one f32 multiply by a host 1/L,
+  No device division/sqrt enters the comparisons (a backend may
+  approximate those); the min-image round(d/L) uses one f32 multiply by a host 1/L,
   whose only ambiguous window is at half-box separations — far outside
   any r_outer ball, so classification is unaffected.
-- 'auto' — 'x64' on f64-capable backends, 'exact32' otherwise; with
-  this, prepare_sim's menv_engine='auto' selects the device engine on
-  every backend, including TPU hosts.
+- 'auto' — 'x64' (every supported backend has f64); with this,
+  prepare_sim's menv_engine='auto' selects the device engine.
 """
 
 from functools import partial
@@ -57,6 +56,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .ranks_device import resolve_precision
 from ...utils.twofloat import (
     df_add, df_le, df_sq, df_sum_pow2, split2_f64, two_sum,
 )
@@ -470,14 +470,7 @@ def do_menv_device(
         np.asarray(r_inner, np.float64), (n,)
     ).copy()
 
-    if precision == 'auto':
-        x64_capable = (
-            bool(jax.config.read('jax_enable_x64'))
-            or jax.default_backend() == 'cpu'
-        )
-        precision = 'x64' if x64_capable else 'exact32'
-    if precision not in ('x64', 'exact32'):
-        raise ValueError(f'unknown precision {precision!r}')
+    precision = resolve_precision(precision)
     tf = precision == 'exact32'
 
     # same host-side preparation as the tree engine (wrap expression

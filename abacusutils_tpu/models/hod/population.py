@@ -1,6 +1,6 @@
 r"""Central/satellite galaxy population as jitted device programs.
 
-TPU-first redesign of the reference's two-pass thread-parallel Numba kernels
+Device redesign of the reference's two-pass thread-parallel Numba kernels
 (gen_cent GRAND_HOD.py:139-414, gen_sats :825-1262): instead of per-thread
 count/cumsum/fill passes, one jitted program computes all tracer markers,
 keep codes and transformed phase-space coordinates for every halo/particle in

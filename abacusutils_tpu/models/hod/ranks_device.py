@@ -23,7 +23,7 @@ particle arrays:
   reduce as big chunked pairwise tiles (per-halo dynamic slices pay ~5 us
   of addressing each — the menv_device lesson); bigger halos run a
   capacity-classed per-window scan whose large tiles amortize that
-  overhead. On f32-only backends (TPU) the pair distances run in
+  overhead. Under 'exact32' the pair distances run in
   double-float32 arithmetic (error-free twoSum differences + Dekker
   split squares, ~2^-46 relative) so the NN key ORDER matches the host
   cKDTree's f64 order away from genuinely degenerate (< 2^-46 relative)
@@ -46,18 +46,14 @@ Precision modes (the `precision` argument):
 - 'x64' — the NN distances run on device in f64 under a local
   `jax.experimental.enable_x64` scope (the global x64 flag stays off) and
   the f64 keys sort natively; bit-for-bit equal to the host loop away
-  from genuine key ties. Requires an f64-capable backend (CPU).
+  from genuine key ties. Every supported backend (CPU, GPU) has f64.
 - 'exact32' — f32-only device path: f64 keys sort as exact (hi, lo, lo2)
   f32 triples and the NN pair kernel runs in double-float32. Rank order
   matches the host loop except for key pairs closer than ~2^-46 relative
-  (physically degenerate; MEASURED on a real v5e at 1.2M particles /
-  11.3k halos: zero real NN flips and zero key flips — every raw
-  mismatch is a tied-key permutation under numpy's unstable argsort;
-  device warm 5.8 s vs 7.8 s host loop on this box's single weak core,
-  scripts/hod/bench_ranks.py). Designed for TPU, runs anywhere.
-- 'auto' — 'x64' on f64-capable backends, 'exact32' otherwise. With this,
-  prepare_slab's ranks_engine='auto' selects the device engine on every
-  backend, including TPU hosts where the serial per-halo loop is the
+  (physically degenerate). Kept as an explicit option; `chip_smoke.py`
+  compares it with 'x64' on the GPU.
+- 'auto' — 'x64'. With this, prepare_slab's ranks_engine='auto' selects
+  the device engine, replacing the serial per-halo loop that is the
   reference's own bottleneck.
 
 The (rank-mean)/mean normalization always runs on host in f64 (ranks and
@@ -170,6 +166,16 @@ def _norm_ranks_host(rank, sel, nsub_p):
     out[nsub_p == 1] = 0.0
     out[~sel] = -1.0
     return out
+
+
+def resolve_precision(precision):
+    """'auto' -> 'x64' (every supported backend has f64); validates the
+    explicit 'x64' | 'exact32' choices. Shared with menv_device."""
+    if precision == 'auto':
+        return 'x64'
+    if precision not in ('x64', 'exact32'):
+        raise ValueError(f'unknown precision {precision!r}')
+    return precision
 
 
 # double-float32 building blocks (exact32 NN path): utils.twofloat
@@ -418,14 +424,7 @@ def rank_fields_device(
     arrays with the reference's conventions: -1 for unselected particles,
     0 for single-selection halos.
     """
-    if precision == 'auto':
-        x64_capable = (
-            bool(jax.config.read('jax_enable_x64'))
-            or jax.default_backend() == 'cpu'
-        )
-        precision = 'x64' if x64_capable else 'exact32'
-    if precision not in ('x64', 'exact32'):
-        raise ValueError(f'unknown precision {precision!r}')
+    precision = resolve_precision(precision)
     x64 = precision == 'x64'
 
     f32 = np.float32

@@ -8,7 +8,7 @@ Same functional forms as the reference scalar Numba kernels
 - QSO: erf central, generic power-law satellite
 
 All functions are elementwise over halo-mass arrays and jittable; dtype
-follows the inputs (f64 for golden-parity host runs, f32 on TPU).
+follows the inputs (f64 for golden-parity host runs, f32 on device).
 """
 
 import jax.numpy as jnp

@@ -14,7 +14,7 @@ import yaml
 
 from ...io.asdf_file import open_asdf
 from ...metadata import get_meta
-from ...ops.power import _from_device_complex, calc_pk_from_deltak, get_field_fft, get_k_mu_edges, get_W_compensated
+from ...ops.power import calc_pk_from_deltak, get_field_fft, get_k_mu_edges, get_W_compensated
 from .cosmo import growth_factors
 from .ic_fields import compress_asdf
 
@@ -122,14 +122,14 @@ def main(
             if mesh is not None and mesh.devices.size > 1:
                 from ...parallel.fft import field_fft_slab
 
-                field_fft = _from_device_complex(
+                field_fft = np.asarray(
                     field_fft_slab(
                         disp_pos, Lbox, nmesh, mesh, w=w, paste=paste,
                         compensated=compensated, interlaced=interlaced,
                     )
                 )
             else:
-                field_fft = _from_device_complex(
+                field_fft = np.asarray(
                     get_field_fft(disp_pos, Lbox, nmesh, paste, w, W, compensated, interlaced)
                 )
             table = {

@@ -69,20 +69,18 @@ def gaussian_filter(field, nmesh, lbox, kcut):
 
 def filter_field(delta_k, n1d, L, kcut, dtype=np.float32):
     """Filter an rfft field in place-like fashion (returns filtered copy)."""
-    from ...ops.power import _to_device_complex
 
     kv, kz = _kvec(n1d, L)
     k2 = kv[:, None, None] ** 2 + kv[None, :, None] ** 2 + kz[None, None, :] ** 2
-    return _to_device_complex(delta_k) * jnp.exp(-k2 / jnp.float32(2.0 * kcut**2))
+    return jnp.asarray(delta_k) * jnp.exp(-k2 / jnp.float32(2.0 * kcut**2))
 
 
 def get_n2_fft(delta_k, n1d, L, dtype=np.float32):
     """-k^2 delta_k in Fourier space (reference ic_fields.py:152-189)."""
     kv, kz = _kvec(n1d, L)
     k2 = kv[:, None, None] ** 2 + kv[None, :, None] ** 2 + kz[None, None, :] ** 2
-    from ...ops.power import _from_device_complex, _to_device_complex
 
-    return _from_device_complex(-k2 * _to_device_complex(delta_k)).astype(np.complex64)
+    return np.asarray(-k2 * jnp.asarray(delta_k)).astype(np.complex64)
 
 
 def get_sij_fft(i_comp, j_comp, delta_k, n1d, L, dtype=np.float32):
@@ -91,13 +89,12 @@ def get_sij_fft(i_comp, j_comp, delta_k, n1d, L, dtype=np.float32):
     ks = (kv[:, None, None], kv[None, :, None], kz[None, None, :])
     k2 = ks[0] ** 2 + ks[1] ** 2 + ks[2] ** 2
     inv_k2 = jnp.where(k2 > 0, 1.0 / k2, 0.0)
-    from ...ops.power import _from_device_complex, _to_device_complex
 
-    dk = _to_device_complex(delta_k)
+    dk = jnp.asarray(delta_k)
     sij = dk * (ks[i_comp] * ks[j_comp] * inv_k2)
     if i_comp == j_comp:
         sij = sij - dk * jnp.float32(1.0 / 3.0)
-    return _from_device_complex(sij).astype(np.complex64)
+    return np.asarray(sij).astype(np.complex64)
 
 
 def add_ij(final_field, field_to_add, n1d, factor=1.0, dtype=np.float32):
@@ -182,7 +179,7 @@ def get_fields_sharded(delta_lin, Lbox, nmesh, mesh, axis='data'):
     """Multi-chip get_fields: the density grid stays sharded end to end.
 
     delta_lin is placed as x-slabs; the forward transform is the
-    slab-transpose rfftn (parallel.fft.slab_rfftn, one all-to-all over ICI),
+    slab-transpose rfftn (parallel.fft.slab_rfftn, one all-to-all across devices),
     the k-space tensor ops run on the y-sharded spectrum with each device's
     own ky rows, each inverse transform is a slab irfftn, and the field
     means are psums. Returns four jax arrays sharded over `axis` (callers

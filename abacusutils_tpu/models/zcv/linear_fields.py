@@ -12,7 +12,7 @@ import yaml
 
 from ...io.asdf_file import open_asdf
 from ...metadata import get_meta
-from ...ops.power import _from_device_complex, calc_pk_from_deltak, get_delta_mu2, get_k_mu_edges
+from ...ops.power import calc_pk_from_deltak, get_delta_mu2, get_k_mu_edges
 from .ic_fields import compress_asdf
 
 __all__ = ['main']
@@ -58,10 +58,10 @@ def main(path2config, alt_simname=None, save_3D_power=False):
         delta = np.asarray(f['data']['dens'])
     print('mean delta', np.mean(delta))
 
-    delta_fft = _from_device_complex(jnp.fft.rfftn(jnp.asarray(delta))) / np.float32(nmesh**3)
+    delta_fft = np.asarray(jnp.fft.rfftn(jnp.asarray(delta))) / np.float32(nmesh**3)
     del delta
 
-    fields_fft = {'delta': delta_fft, 'deltamu2': _from_device_complex(get_delta_mu2(delta_fft, nmesh))}
+    fields_fft = {'delta': delta_fft, 'deltamu2': np.asarray(get_delta_mu2(delta_fft, nmesh))}
 
     header = {'sim_name': sim_name, 'Lbox': Lbox, 'nmesh': nmesh, 'kcut': kcut}
     pk_lin_dict = {'k_binc': k_binc, 'mu_binc': mu_binc}

@@ -12,7 +12,6 @@ import numpy as np
 from ...io.asdf_file import open_asdf
 from ...metadata import get_meta
 from ...ops.power import (
-    _from_device_complex,
     calc_pk_from_deltak,
     get_delta_mu2,
     get_field_fft,
@@ -88,7 +87,7 @@ def get_tracer_power(
     tracer_pos = np.asarray(tracer_pos)
     tracer_pos = tracer_pos + Lbox / 2.0
     tracer_pos %= Lbox
-    tr_field_fft = _from_device_complex(
+    tr_field_fft = np.asarray(
         get_field_fft(tracer_pos, Lbox, nmesh, paste, None, W, compensated, interlaced)
     )
     del tracer_pos
@@ -237,17 +236,17 @@ def get_recon_power(
 
     if want_load_tr_fft:
         with open_asdf(tr_field_fft_fn) as f:
-            tr_field_fft = _from_device_complex(f['data']['tr_field_fft_Re']) + 1j * _from_device_complex(
+            tr_field_fft = np.asarray(f['data']['tr_field_fft_Re']) + 1j * np.asarray(
                 f['data']['tr_field_fft_Im']
             )
     else:
-        tr_field_fft = _from_device_complex(
+        tr_field_fft = np.asarray(
             get_field_fft(
                 np.asarray(tracer_pos), Lbox, nmesh, paste, None, W, compensated, interlaced
             )
         )
         if random_pos is not None:
-            rn_field_fft = _from_device_complex(
+            rn_field_fft = np.asarray(
                 get_field_fft(
                     np.asarray(random_pos), Lbox, nmesh, paste, None, W,
                     compensated, interlaced,
@@ -272,10 +271,10 @@ def get_recon_power(
         delta = np.asarray(f['data']['dens'])
     import jax.numpy as jnp
 
-    delta_fft = _from_device_complex(jnp.fft.rfftn(jnp.asarray(delta))) / nmesh**3
+    delta_fft = np.asarray(jnp.fft.rfftn(jnp.asarray(delta))) / nmesh**3
     del delta
 
-    fields = {'delta': delta_fft, 'deltamu2': _from_device_complex(get_delta_mu2(delta_fft, nmesh))}
+    fields = {'delta': delta_fft, 'deltamu2': np.asarray(get_delta_mu2(delta_fft, nmesh))}
 
     header = {'sim_name': sim_name, 'Lbox': Lbox, 'nmesh': nmesh, 'kcut': kcut}
 

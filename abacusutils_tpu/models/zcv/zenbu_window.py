@@ -4,7 +4,7 @@ The window function (reference zenbu_window.py:49-181, a quadruple Python
 loop over all modes — infeasible at production nmesh) reduces to per-bin
 mode sums: computed here either with vectorized numpy bincounts ('host') or
 on the accelerator ('device': per-kx-plane one-hot bin memberships
-contracted on the MXU, O(nmesh^2) working set — the default at zcv-scale
+contracted as matrix products, O(nmesh^2) working set — the default at zcv-scale
 meshes, ~50x the host path at nmesh=512).
 
 ZeNBu/velocileptors are optional external packages: if installed,
@@ -138,10 +138,9 @@ _WINDOW_SUMS_JIT = None
 
 def _window_mode_sums_device(nmesh, lbox, kout):
     """The same mode sums on the accelerator: per-kx-plane one-hot bin
-    memberships contracted on the MXU (7 weight rows x nkout bins per
-    plane, under lax.scan) — O(nmesh^2) working set instead of the host
-    path's O(nmesh^3) temporaries, and ~50x faster at nmesh=512 on one
-    TPU chip (docs/performance.md)."""
+    memberships contracted as matrix products (7 weight rows x nkout bins
+    per plane, under lax.scan) — O(nmesh^2) working set instead of the
+    host path's O(nmesh^3) temporaries."""
     import jax
     import jax.numpy as jnp
 
@@ -180,7 +179,7 @@ def periodic_window_function(nmesh, lbox, kout, kin, k2weight=True,
     multipoles in test_zenbu_native.py; the reference transposes its own
     matrix at the run_zcv call site, see PARITY.md).
 
-    engine: 'host' (numpy bincounts), 'device' (MXU one-hot contraction,
+    engine: 'host' (numpy bincounts), 'device' (matmul one-hot contraction,
     O(nmesh^2) memory), or 'auto' (device at zcv-scale meshes).
 
     Returns (window, keff).

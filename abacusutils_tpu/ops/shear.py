@@ -49,9 +49,8 @@ def get_tidal(dfour, karr, N_dim, R=None, dtype=np.float32):
     (xx, xy, xz, yy, yz, zz), keeping the reference's a*b*c == 0 mode skip
     and optional tophat smoothing (reference get_tidal shear.py:39-66).
     Returns (N, N, N//2+1, 6) complex64."""
-    from .power import _to_device_complex
 
-    dfour = _to_device_complex(dfour)
+    dfour = jnp.asarray(dfour)
     karr = jnp.asarray(karr, dtype)
     kzlen = N_dim // 2 + 1
     ka = karr[:, None, None]
@@ -75,9 +74,8 @@ def get_tidal(dfour, karr, N_dim, R=None, dtype=np.float32):
             kc * kc * dok2,
         ]
     )
-    from .power import _from_device_complex
 
-    return _from_device_complex(jnp.moveaxis(comps, 0, -1)).astype(np.complex64)
+    return np.asarray(jnp.moveaxis(comps, 0, -1)).astype(np.complex64)
 
 
 def get_shear_nb(tidr, N_dim):
@@ -116,7 +114,7 @@ def _smooth_periodic_jit(D, RcellSq, N_dim):
 
 
 def smooth_density_periodic(D, R, N_dim, Lbox):
-    """Periodic Gaussian smoothing via FFT (the TPU-native path)."""
+    """Periodic Gaussian smoothing via FFT (the device path)."""
     cell = Lbox / N_dim
     return _smooth_periodic_jit(jnp.asarray(D), jnp.float32((R / cell) ** 2), int(N_dim))
 

@@ -7,18 +7,19 @@ the zcv pipeline runs meshes up to 1024+, where a replicated f32 grid is
 keeps the grid sharded end to end:
 
 - real space: x-slabs. Each chip paints only its (nmesh/n + 4, Y, Z)
-  extended slab; the two halo planes on each side ride ICI with ppermute
+  extended slab; the two halo planes on each side ride the interconnect
+  with ppermute
   ring shifts (the TSC stencil reaches one plane past the slab, and host
   slab bucketing is allowed +-1 cell of f32 slack).
 - Fourier space: y-slabs. The 3D rfft factors into local rfft(z) + fft(y),
-  ONE all-to-all transpose over ICI, and a local fft(x).
+  ONE all-to-all transpose across devices, and a local fft(x).
 - binning: each chip bins its local modes with a per-shard _ModeBinPlan
-  (ops.power) built for its ky rows; bin sums psum over ICI.
+  (ops.power) built for its ky rows; bin sums psum across devices.
 
 Per-chip memory is ~1/n of the replicated path at every stage. The
 reference has no distributed analogue (single-node pocketfft,
-power_spectrum.py:860-901); this is the TPU-first scaling story of
-SURVEY.md section 2.7.
+power_spectrum.py:860-901); this is the scaling story of SURVEY.md
+section 2.7.
 """
 
 from functools import partial
@@ -251,8 +252,9 @@ def calc_power_sharded_slab(
     """P(k,mu)/P_ell with the density grid sharded end to end (x-slab paint,
     transpose rfftn, y-slab mode binning). Bin-for-bin equal (up to FFT
     rounding) to ops.power.calc_power / the replicated calc_power_sharded,
-    with per-chip grid memory ~1/n_devices. Use for zcv-scale meshes
-    (nmesh >= 512); parallel.mesh.calc_power_sharded dispatches here."""
+    with per-chip grid memory ~1/n_devices. Use for meshes whose replicated
+    grids do not fit one device; parallel.mesh.calc_power_sharded
+    dispatches here."""
     from ..ops.power import get_k_mu_edges
 
     ndev = mesh.shape[axis]

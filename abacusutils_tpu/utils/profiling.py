@@ -5,7 +5,7 @@ behind ``verbose`` flags (tsc.py:167-202, GRAND_HOD.py:1470-1501) and
 read-rate reports (pipe_asdf.py:156-163). Here the device-side equivalents
 are a wall-clock stage timer that synchronizes the device (so stages are
 attributable under async dispatch) and an opt-in ``jax.profiler`` trace
-context for real op-level TPU profiles.
+context for real op-level device profiles.
 """
 
 import logging

@@ -12,7 +12,11 @@ Two deployment shapes:
 
 * **Single farmer** (one host): ``python -m abacusutils_tpu.utils.taskfarm
   tasks.txt -w 8``. Workers pull the next task as they free up, so long and
-  short tasks load-balance automatically.
+  short tasks load-balance automatically. ``-w 8`` suits host-only tasks;
+  tasks that run JAX on the GPU need a card each (a JAX process reserves
+  most of a card's memory), so run no more of them at once than there are
+  cards, each on its own card — e.g. one ``-w 1`` farmer per card with
+  ``CUDA_VISIBLE_DEVICES=i`` and a shared claims file (below).
 * **Shared-filesystem fleet** (many hosts, e.g. one farmer per Slurm node):
   every farmer is started with the same taskfile and ``--shared CLAIMS``.
   Tasks are claimed through an fcntl-locked claims file before execution,

@@ -1,7 +1,7 @@
 r"""Double-float32 ("two-float") building blocks for f32-only backends.
 
-TPUs have no f64 ALU, but the VPU's f32 add/mul are IEEE round-to-nearest
-— enough for error-free transforms: Knuth's twoSum captures the exact
+On a backend without f64, f32 add/mul that are IEEE round-to-nearest are
+enough for error-free transforms: Knuth's twoSum captures the exact
 rounding error of an add, Dekker's 12+12-bit split makes small products
 exact. A value is carried as a normalized (hi, lo) pair with
 |lo| <= ulp(hi)/2, giving ~2^-48 relative resolution — enough to
@@ -10,8 +10,11 @@ reproduce the ORDER of f64-computed quantities away from genuine
 and boundary classifications need (prepare_sim's rank and Menv device
 engines; see ranks_device / menv_device docstrings).
 
-No division, sqrt, log, or rsqrt enters these kernels — TPU implements
-those as approximations and they would break the error-free guarantees.
+No division, sqrt, log, or rsqrt enters these kernels — a backend may
+implement those as approximations, which would break the error-free
+guarantees. The transforms also need each multiply and add rounded
+separately: a compiler that fuses them into an FMA changes the error
+terms (`chip_smoke.py` checks 'exact32' against 'x64' on the GPU).
 
 These helpers are trace-time (compose under jit); all ops broadcast.
 """

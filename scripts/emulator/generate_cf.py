@@ -3,7 +3,7 @@
 Generate a halo 2PCF on a single AbacusSummit halo catalog, for building
 emulators over many sims/redshifts.
 
-TPU-native counterpart of the reference's emulator driver
+Device counterpart of the reference's emulator driver
 (scripts/emulator/generate_cfs/generate_cf.py:1-150): same CLI, same
 selection (most-massive halos down to a target number density), same output
 schema (ASDF file holding a Corrfunc-DD-shaped table plus `xi`/`rmid`), but

@@ -42,13 +42,12 @@ def main():
     from abacusutils_tpu.ops.grid import deposit_chunk
     from abacusutils_tpu.ops.power import get_W_compensated
 
-    def sync(x):
-        return float(jnp.sum(jnp.ravel(x)[:1].astype(jnp.float32)))
+    sync = jax.block_until_ready
 
     halo, part, params = make_example_inputs_device(
         N_HALO, N_PART, LBOX, seed=42, link=True
     )
-    float(part['x'][-1])
+    sync(part)
 
     t0 = time.perf_counter()
     halo_g, part_g, plan_h, plan_p = group_inputs2d_linked_device(
@@ -110,8 +109,7 @@ def main():
     t0 = time.perf_counter()
     for _ in range(n_iter):
         spectra, ng = step()
-    for t in want:
-        float(ng[t])  # sync
+    sync((spectra, ng))
     dt = (time.perf_counter() - t0) / n_iter
 
     total_gal = sum(ngals.values())

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """TSC painting throughput (counterpart of reference scripts/tsc/bench.py):
-particles/sec through the scatter and planned MXU paths."""
+particles/sec through the scatter and planned matmul paths."""
 
 import argparse
 import time

@@ -135,7 +135,7 @@ def test_compat_helpers_functional():
     npt.assert_array_equal(out.view(np.int64), data)
 
 
-# The inner population kernels are TPU-reshaped by design: the reference
+# The inner population kernels are reshaped for the device by design: the reference
 # passes per-tracer dicts + want flags + Nthread into numba kernels; here
 # the same inputs arrive as prepared tracer-param structures consumed by one
 # vectorized program. The call-compatible surface is one level up

@@ -1,4 +1,4 @@
-"""Emulator CF driver test: the TPU counterpart of the reference's
+"""Emulator CF driver test: the device counterpart of the reference's
 scripts/emulator/generate_cfs/generate_cf.py, driven end-to-end on the
 Mini_N64_L32 fixture and validated against an f64 brute-force DD(r)."""
 

@@ -143,7 +143,7 @@ def test_run_hod_pk_fused_matches_compute_power(prepared):
 def test_run_hod_pk_fused_sharded_equality(prepared):
     """The flagship multi-tracer fused pipeline under shard_map
     (parallel.mesh.hod_pk_fused_sharded: x-slab cell shards, int8
-    conformity all_gather, ICI grid psum) is bin-for-bin equal to the
+    conformity all_gather, grid psum) is bin-for-bin equal to the
     single-device program on the Mini box over the 8-device CPU mesh:
     exact per-tracer galaxy counts, auto+cross spectra equal up to f32
     summation order at shard boundaries."""
@@ -158,7 +158,7 @@ def test_run_hod_pk_fused_sharded_equality(prepared):
     mesh = make_mesh()
     assert mesh.devices.size == 8
     shard, n_gal_s = ball.run_hod_pk_fused(
-        nmesh=nmesh, nbins_k=nbins_k, mesh=mesh
+        nmesh=nmesh, nbins_k=nbins_k, mesh=mesh, slab=False
     )
     # the grid-sharded composition (x-slab deposit + ppermute halo
     # exchange + all-to-all transpose FFT + ky-slab binning): same mesh,

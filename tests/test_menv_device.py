@@ -1,7 +1,7 @@
 """Device Menv engine (grid-binned annulus mass sums) vs the cKDTree
 path, in both precision modes: 'x64' (local x64 scope on CPU —
 ball classification is bit-identical and only summation order differs,
-so equality holds to f64 rounding) and 'exact32' (the f32-only TPU
+so equality holds to f64 rounding) and 'exact32' (the f32-only
 arithmetic — double-float32 coordinates/masses, error-free pair
 distances, compensated sums — forced here on the CPU test backend;
 classification must match exactly, sums to ~2^-40 relative), on

@@ -29,7 +29,7 @@ def test_calc_power_sharded_matches_single():
 
     res_s = calc_power_sharded(
         pos, lbox, mesh=make_mesh(), nmesh=nmesh, kbins=16, w=w,
-        poles=(0, 2, 4),
+        poles=(0, 2, 4), slab=False,
     )
     res = calc_power(
         pos, lbox, kbins=16, mubins=1, k_max=np.pi * nmesh / lbox, logk=False,

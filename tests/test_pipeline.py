@@ -165,37 +165,6 @@ def test_linked_device_staging_matches_host():
     )
 
 
-def test_pallas_fused_matches_planned():
-    """The Pallas fused pipeline (interpret mode on CPU) produces the same
-    galaxy count and P(k) sums as the XLA planned pipeline on the same
-    catalog (groupings differ; the deposits are the same set of galaxies)."""
-    from abacusutils_tpu.models.pipeline import (
-        group_inputs2d,
-        hod_pk_fused_pallas,
-    )
-
-    halo, part, params = _inputs(n_halo=8000, n_part=30000, seed=9)
-    part.pop('hidx')
-    binplan, counts = make_bin_plan_arrays(NMESH, LBOX, NBINS_K)
-
-    halo_g, K_h = group_inputs(halo, NMESH, LBOX, chunk=256)
-    part_g, K_p = group_inputs(part, NMESH, LBOX, chunk=256)
-    wsum_p, ngal_p = hod_pk_fused_planned(
-        halo_g, part_g, params, binplan, None, LBOX, 100.0,
-        NMESH, NBINS_K, K_h, K_p, rsd=True, chunk=256,
-    )
-
-    halo_g2, plan_h = group_inputs2d(halo, NMESH, LBOX, yb=8, chunk=64)
-    part_g2, plan_p = group_inputs2d(part, NMESH, LBOX, yb=8, chunk=64)
-    wsum_k, ngal_k = hod_pk_fused_pallas(
-        halo_g2, part_g2, params, binplan, None, LBOX, 100.0,
-        NMESH, 8, NBINS_K, plan_h.K, plan_p.K, rsd=True, chunk=64,
-        interpret=True,
-    )
-    assert float(ngal_k) == float(ngal_p)
-    npt.assert_allclose(np.asarray(wsum_k), np.asarray(wsum_p), rtol=2e-4)
-
-
 def test_yb_matches_planned():
     """The y-blocked fused pipeline (bench path) returns the same n_gal and
     P(k) sums as the x-slab planned pipeline on the same catalog."""

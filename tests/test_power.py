@@ -341,7 +341,7 @@ def test_power_soa_and_device_inputs():
     from abacusutils_tpu.ops.power import StagedPower, calc_power
 
     rng = np.random.default_rng(61)
-    # above _PLANNED_PAINT_MIN_N so the staged MXU deposit branch runs
+    # above _PLANNED_PAINT_MIN_N so the staged matmul deposit branch runs
     n, nmesh, Lbox = 600_000, 32, 500.0
     pos = (rng.random((n, 3)) * Lbox).astype(np.float32)
 

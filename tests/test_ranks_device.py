@@ -3,7 +3,7 @@ loop: exact equality of all five rank fields (tie-aware for the NN rank,
 whose mutual-nearest-neighbor ties have unspecified order under numpy's
 unstable argsort — ranks_device.py docstring). Both precision modes are
 covered: 'x64' (the CPU-backend local-x64 scope) and 'exact32' (the
-f32-only TPU arithmetic — host f64 keys sorted as exact f32 triples +
+f32-only arithmetic — host f64 keys sorted as exact f32 triples +
 the double-float32 NN kernel — forced here on the CPU test backend)."""
 
 import numpy as np

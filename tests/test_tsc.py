@@ -156,43 +156,11 @@ def test_returns(seed=123):
     npt.assert_allclose(dens_allocated, dens)
 
 
-@pytest.mark.parametrize('npass', [1, 3])
-def test_pallas_paint_grouped2d(npass):
-    """The Pallas fused deposit kernel (interpret mode) matches the scatter
-    paint. npass=3 is the bf16 hi/lo-split accurate mode; npass=1 is the
-    single-MXU-pass mode (~2e-3 on TPU, exact in the CPU interpreter)."""
-    from abacusutils_tpu.ops.grid import paint_3d
-    from abacusutils_tpu.ops.grid_pallas import build_paint_plan2d, paint_grouped2d
-
-    rng = np.random.default_rng(5)
-    n, nmesh, box = 20_000, 32, 64.0
-    pos = (rng.random((n, 3)) * box).astype(np.float32)
-    w = rng.random(n).astype(np.float32)
-
-    plan = build_paint_plan2d(pos[:, 0], pos[:, 1], nmesh, box, yb=8, chunk=64)
-    idx = np.asarray(plan.pad_idx).reshape(-1)
-
-    def grouped(a, fill=0.0):
-        ext = np.concatenate([a, np.full(1, fill, a.dtype)])
-        return ext[idx].reshape(plan.ncell, plan.K)
-
-    out = np.asarray(
-        paint_grouped2d(
-            plan, grouped(pos[:, 0]), grouped(pos[:, 1]), grouped(pos[:, 2]),
-            grouped(w), chunk=64, npass=npass, interpret=True,
-        )
-    )
-    ref = np.asarray(paint_3d(pos, nmesh, box, weights=w))
-    npt.assert_allclose(out, ref, rtol=1e-4, atol=1e-6)
-    npt.assert_allclose(out.sum(), w.sum(), rtol=1e-5)
-
-
 @pytest.mark.parametrize('nmesh,B', [(32, 8), (64, 32)])
 def test_paint_planned2_yblock(nmesh, B):
-    """The y-blocked MXU deposit (paint_planned2) matches the scatter paint,
+    """The y-blocked matmul deposit (paint_planned2) matches the scatter paint,
     including block-edge and periodic-wrap stencil spill."""
-    from abacusutils_tpu.ops.grid import paint_3d, paint_planned2
-    from abacusutils_tpu.ops.grid_pallas import build_paint_plan2d
+    from abacusutils_tpu.ops.grid import build_paint_plan2d, paint_3d, paint_planned2
 
     rng = np.random.default_rng(7)
     n, box = 30_000, 77.0
@@ -211,8 +179,7 @@ def test_paint_planned2_yblock(nmesh, B):
 def test_paint_planned2_offset():
     """Interlacing offset path through paint_planned2 (plan built with the
     same half-cell offset)."""
-    from abacusutils_tpu.ops.grid import paint_3d, paint_planned2
-    from abacusutils_tpu.ops.grid_pallas import build_paint_plan2d
+    from abacusutils_tpu.ops.grid import build_paint_plan2d, paint_3d, paint_planned2
 
     rng = np.random.default_rng(9)
     n, nmesh, box = 10_000, 32, 50.0

@@ -457,7 +457,7 @@ def test_zenbu_window_main_generates_templates(tmp_path):
 
 
 def test_window_device_engine_matches_host():
-    """The MXU mode-sum engine (per-kx-plane one-hot contraction, the
+    """The matmul mode-sum engine (per-kx-plane one-hot contraction, the
     default at zcv-scale nmesh) must reproduce the host bincount path
     bit-tightly, for linear and log-spaced output bins."""
     nmesh, lbox = 32, 250.0
